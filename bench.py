@@ -11,8 +11,7 @@ a stale-anchor speedup is not a result, only a fallback so the driver
 still gets a number.
 
 Extra keys: anchor_wps, concordance {matched, ref_total, ours_total},
-breakdown (per-stage seconds from the runner), pallas_parity (device
-Pallas kernel vs the scan fill on sample alignments; null off-TPU).
+breakdown (per-stage seconds from the runner).
 """
 
 from __future__ import annotations
@@ -26,8 +25,12 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 
-CORPUS_DIR = "/tmp/lancet_tpu_bench_corpus_v2"
-HARD_DIR = "/tmp/lancet_tpu_bench_corpus_hard_v2"
+# generated corpora live in the checkout (.corpus/ is git-ignored), so two
+# checkouts never share one and its `ok` marker
+CORPUS_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ".corpus")
+CORPUS_DIR = os.path.join(CORPUS_ROOT, "bench_v2")
+HARD_DIR = os.path.join(CORPUS_ROOT, "bench_hard_v2")
 REF_BIN = os.environ.get("LANCET_REF_BIN", "/tmp/refbuild/src/lancet")
 ANCHOR_FILE = os.path.join(CORPUS_DIR, "anchor_wps.txt")
 HARD_ANCHOR_FILE = os.path.join(HARD_DIR, "anchor_wps.txt")
@@ -38,14 +41,14 @@ READ_LEN = 100
 STEP = 5  # ~40x coverage, continuous over the chromosome
 
 
-def build_corpus():
+def build_corpus(out_dir: str = CORPUS_DIR):
     import random
 
     from helpers import make_reference, write_pair
     from goldengen import hap_reads
 
-    os.makedirs(CORPUS_DIR, exist_ok=True)
-    marker = os.path.join(CORPUS_DIR, "ok")
+    os.makedirs(out_dir, exist_ok=True)
+    marker = os.path.join(out_dir, "ok")
     if os.path.exists(marker):
         return
     rng = random.Random(2024)
@@ -70,7 +73,7 @@ def build_corpus():
         normal += hap_reads(refseq, None, lo, hi, READ_LEN, STEP, f"n{idx}_",
                             0, 2000 + idx)
         idx += 1
-    write_pair(CORPUS_DIR, refseq, "chr1", tumor, normal)
+    write_pair(out_dir, refseq, "chr1", tumor, normal)
     with open(marker, "w") as f:
         f.write("ok")
 
@@ -172,7 +175,7 @@ def build_hard_corpus():
         f.write("ok")
 
 
-LR_DIR = "/tmp/lancet_tpu_bench_corpus_lr_v1"
+LR_DIR = os.path.join(CORPUS_ROOT, "bench_lr_v1")
 LR_CHROM_LEN = 60_000
 
 
@@ -259,8 +262,8 @@ def ensure_ref_binary() -> bool:
 
 
 def count_windows(region: str, corpus: str = CORPUS_DIR) -> int:
-    from lancet_tpu.io.fasta import FastaFile
-    from lancet_tpu.windows import generate_windows
+    from lancet_jax.io.fasta import FastaFile
+    from lancet_jax.windows import generate_windows
 
     fa = FastaFile(os.path.join(corpus, "ref.fa"))
     return len(generate_windows(fa, [region], fa.lengths, 600, 250))
@@ -268,15 +271,15 @@ def count_windows(region: str, corpus: str = CORPUS_DIR) -> int:
 
 def run_ours(region: str, stats: dict | None = None,
              corpus: str = CORPUS_DIR) -> tuple[float, str]:
-    from lancet_tpu.config import Config
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.runner import run
 
     cfg = Config(tumor_bam=os.path.join(corpus, "tumor.bam"),
                  normal_bam=os.path.join(corpus, "normal.bam"),
                  ref_fasta=os.path.join(corpus, "ref.fa"),
                  region=region, num_threads=8)
     t0 = time.time()
-    vcf = run(cfg, command_line="bench", date="D\n", engine="tpu",
+    vcf = run(cfg, command_line="bench", date="D\n", engine="device",
               processes=True, stats=stats)
     return time.time() - t0, vcf
 
@@ -295,48 +298,6 @@ def run_reference(region: str,
     if r.returncode != 0:
         return None
     return time.time() - t0, r.stdout
-
-
-def pallas_parity_check(sample_pairs=None) -> bool | None:
-    """On TPU: assert the compiled Pallas fill and the lax.scan fill agree
-    on window-scale alignments. `sample_pairs` are REAL DP jobs sampled
-    from the bench run itself (stats["dp_samples"], up to 64 across the
-    run's actual shape/length buckets); synthetic pairs are only the
-    fallback when a run produced no DP jobs."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return None
-    import random
-
-    from lancet_tpu.tpu.align_batch import batch_align
-
-    pairs = list(sample_pairs or [])
-    if not pairs:
-        rng = random.Random(7)
-        bases = "ACGT"
-        for _ in range(16):
-            n = rng.randint(400, 1100)
-            s = "".join(rng.choice(bases) for _ in range(n))
-            t = list(s)
-            for _ in range(rng.randint(1, 8)):  # SNVs
-                p = rng.randrange(len(t))
-                t[p] = rng.choice(bases)
-            p = rng.randrange(len(t) - 10)  # one indel
-            if rng.random() < 0.5:
-                t[p:p] = [rng.choice(bases)
-                          for _ in range(rng.randint(1, 6))]
-            else:
-                del t[p : p + rng.randint(1, 6)]
-            pairs.append((s, "".join(t)))
-    os.environ["LANCET_TPU_PALLAS"] = "1"
-    try:
-        got_pallas = batch_align(pairs)
-    finally:
-        os.environ["LANCET_TPU_PALLAS"] = "0"
-    got_scan = batch_align(pairs)
-    del os.environ["LANCET_TPU_PALLAS"]
-    return got_pallas == got_scan
 
 
 def main():
@@ -366,24 +327,24 @@ def main():
     wps = nwin / elapsed
     wps_cold = nwin / elapsed1
 
-    # ---- device graph engine configuration (LANCET_TPU_DEVGRAPH=1):
-    # the full colored-DBG build/cleanup/path-cover on the TPU. Measured
+    # ---- device graph engine configuration (LANCET_DEVGRAPH=1):
+    # the full colored-DBG build/cleanup/path-cover on the device. Measured
     # every run beside the default so the engine-selection decision
     # (DESIGN.md 'Measured crossover') stays backed by current numbers.
     devgraph = None
-    if not os.environ.get("LANCET_TPU_BENCH_SKIP_DEVGRAPH"):
+    if not os.environ.get("LANCET_BENCH_SKIP_DEVGRAPH"):
         # >=1,000 windows so the crossover number is converged and the
         # k>63 / cap fallback costs are visible in the cause breakdown
         dg_region = f"chr1:300-{min(CHROM_LEN - 300, 120_000)}"
         nwin_dg = count_windows(dg_region)
-        os.environ["LANCET_TPU_DEVGRAPH"] = "1"
+        os.environ["LANCET_DEVGRAPH"] = "1"
         try:
             with contextlib.redirect_stderr(io.StringIO()):
                 run_ours(dg_region)  # warm (XLA compiles are cached)
             dgstats: dict = {}
             dg_elapsed, dg_vcf = run_ours(dg_region, dgstats)
         finally:
-            del os.environ["LANCET_TPU_DEVGRAPH"]
+            del os.environ["LANCET_DEVGRAPH"]
         base_vcf = run_ours(dg_region)[1]  # default engine, env cleared
         t_dev = sum(dgstats.get(k, 0.0) for k in
                     ("t_dg_build", "t_dg_assemble", "t_dp"))
@@ -424,8 +385,6 @@ def main():
         anchor = None
         anchor_state = "unavailable"
 
-    parity = pallas_parity_check(stats.get("dp_samples"))
-
     breakdown = {k: round(v, 3) for k, v in stats.items()
                  if isinstance(v, float)}
     breakdown.update({k: v for k, v in stats.items() if isinstance(v, int)})
@@ -437,7 +396,7 @@ def main():
     # ---- adversarial corpus: STR/near-repeat/homopolymer/dense/high-cov
     # families where the k-retry tail carries real weight --------------
     hard = None
-    if not os.environ.get("LANCET_TPU_BENCH_SKIP_HARD"):
+    if not os.environ.get("LANCET_BENCH_SKIP_HARD"):
         build_hard_corpus()
         hregion = f"chr1:300-{HARD_CHROM_LEN - 300}"
         nwin_h = count_windows(hregion, HARD_DIR)
@@ -496,9 +455,9 @@ def main():
     # ---- LR (linked-reads) mode: native-plane path (BX/HP payloads,
     # LR coverage rows, HP/BX variant fields) + device-batched DP ------
     lr = None
-    if not os.environ.get("LANCET_TPU_BENCH_SKIP_LR"):
-        from lancet_tpu.config import Config as _Cfg
-        from lancet_tpu.runner import run as _run
+    if not os.environ.get("LANCET_BENCH_SKIP_LR"):
+        from lancet_jax.config import Config as _Cfg
+        from lancet_jax.runner import run as _run
 
         build_lr_corpus()
         lregion = f"chr1:300-{LR_CHROM_LEN - 300}"
@@ -514,10 +473,10 @@ def main():
         lstats: dict = {}
         with contextlib.redirect_stderr(io.StringIO()):
             _run(lcfg, command_line="bench", date="D\n",
-                 engine="tpu", processes=True)
+                 engine="device", processes=True)
             t0 = time.time()
             l_vcf = _run(lcfg, command_line="bench", date="D\n",
-                         engine="tpu", processes=True, stats=lstats)
+                         engine="device", processes=True, stats=lstats)
         l_wps = nwin_l / (time.time() - t0)
         l_anchor, l_conc = None, None
         if have_ref:
@@ -548,7 +507,7 @@ def main():
 
     print(f"# windows={nwin} elapsed={elapsed:.2f}s "
           f"anchor_wps={anchor} ({anchor_state}) concordance={concordance} "
-          f"breakdown={breakdown} pallas_parity={parity}",
+          f"breakdown={breakdown}",
           file=sys.stderr)
     print(json.dumps({
         "metric": "windows_per_second_per_chip",
@@ -560,7 +519,6 @@ def main():
         "first_pass_wps": round(wps_cold, 3),
         "concordance": concordance,
         "breakdown": breakdown,
-        "pallas_parity": parity,
         "devgraph": devgraph,
         "hard": hard,
         "lr": lr,

@@ -4,7 +4,7 @@ lgp_run per-k pipeline) WITHOUT touching JAX — XLA's compiler aborts
 under an LD_PRELOADed ASan runtime through no fault of ours, so the
 device stage is deliberately left undispatched (path jobs are collected
 but never aligned). Run by test_native_asan.py in a subprocess with
-LD_PRELOAD=libasan and LANCET_TPU_NATIVE_SO pointing at the ASan build.
+LD_PRELOAD=libasan and LANCET_NATIVE_SO pointing at the ASan build.
 """
 
 import os
@@ -19,16 +19,16 @@ def main() -> int:
     from goldengen import fuzz_corpus, scenario
     from helpers import write_pair
 
-    from lancet_tpu.config import Config
-    from lancet_tpu.engine.micro import Microassembler
-    from lancet_tpu.io import open_bam, open_fasta
-    from lancet_tpu.io.bam import BamReader as PyBam
-    from lancet_tpu.io.fasta import FastaFile as PyFasta
-    from lancet_tpu.native import NativeBamReader, NativeFastaFile
-    from lancet_tpu.runner import run
-    from lancet_tpu.windows import generate_windows
+    from lancet_jax.config import Config
+    from lancet_jax.engine.micro import Microassembler
+    from lancet_jax.io import open_bam, open_fasta
+    from lancet_jax.io.bam import BamReader as PyBam
+    from lancet_jax.io.fasta import FastaFile as PyFasta
+    from lancet_jax.native import NativeBamReader, NativeFastaFile
+    from lancet_jax.runner import run
+    from lancet_jax.windows import generate_windows
 
-    assert os.environ.get("LANCET_TPU_NATIVE_SO"), "ASan .so not wired in"
+    assert os.environ.get("LANCET_NATIVE_SO"), "ASan .so not wired in"
 
     with tempfile.TemporaryDirectory() as td:
         refseq, tumor, normal, region = fuzz_corpus(3, n_events=6)
@@ -57,13 +57,13 @@ def main() -> int:
         assert nrec > 0, "oracle run produced no records"
 
         # 3) lgb_build / lgp_run native kernels, device stage undispatched
-        from lancet_tpu.engine.fastpipe import available
+        from lancet_jax.engine.fastpipe import available
         assert available(), "native pipeline kernel failed to load"
         fa = open_fasta(ref_path)
         windows = generate_windows(fa, [region], fa.lengths,
                                    cfg.window_size, cfg.padding)
         ma = Microassembler(cfg, readers=(open_bam(t_path),
-                                          open_bam(n_path)), engine="tpu")
+                                          open_bam(n_path)), engine="device")
         for w in windows:
             ma.process_window(w)
         assert ma.path_jobs, "native pipeline produced no path jobs"
@@ -77,7 +77,7 @@ def main() -> int:
                                           lr_refseq, "chr1", lr_t, lr_n)
         lcfg = Config(tumor_bam=lr_tp, normal_bam=lr_np, ref_fasta=lr_ref,
                       region=lr_region, lr_mode=True)
-        from lancet_tpu.engine.shardrun import run_shards
+        from lancet_jax.engine.shardrun import run_shards
         lfa = open_fasta(lr_ref)
         lwins = generate_windows(lfa, [lr_region], lfa.lengths,
                                  lcfg.window_size, lcfg.padding)
@@ -91,7 +91,7 @@ def main() -> int:
         # 5) libstdc++ map-order rank kernel (devgraph's host round trip)
         import numpy as np
 
-        from lancet_tpu.native import lmo_ranks_batch
+        from lancet_jax.native import lmo_ranks_batch
         rng = np.random.default_rng(7)
         for k2, n2 in ((15, 2800), (31, 900), (63, 300)):
             vals = np.unique(rng.integers(

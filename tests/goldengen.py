@@ -5,8 +5,13 @@ from __future__ import annotations
 
 import random
 
-from lancet_tpu.engine.micro import Aln
-from tests.helpers import make_reference, md_for, write_pair
+from lancet_jax.engine.micro import Aln
+
+try:
+    from tests.helpers import make_reference, md_for, write_pair
+except ModuleNotFoundError:  # an installed package named `tests` shadows
+    # this directory's namespace package; bench.py puts tests/ on sys.path
+    from helpers import make_reference, md_for, write_pair
 
 BASES = "ACGT"
 

@@ -4,9 +4,9 @@ from __future__ import annotations
 
 import random
 
-from lancet_tpu.engine.micro import Aln
-from lancet_tpu.io.bam import write_bam
-from lancet_tpu.io.fasta import write_fasta
+from lancet_jax.engine.micro import Aln
+from lancet_jax.io.bam import write_bam
+from lancet_jax.io.fasta import write_fasta
 
 BASES = "ACGT"
 

@@ -7,8 +7,8 @@ import os
 import pytest
 
 from helpers import make_reference, tiled_reads, write_pair
-from lancet_tpu.config import Config, print_configuration
-from lancet_tpu.runner import run
+from lancet_jax.config import Config, print_configuration
+from lancet_jax.runner import run
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +37,7 @@ def test_resume_produces_identical_vcf(corpus, tmp_path):
     # first pass writes the checkpoint log
     rdir = str(tmp_path / "ckpt")
     cfg = _cfg(corpus, resume_dir=rdir)
-    first = run(cfg, date="D\n", engine="tpu")
+    first = run(cfg, date="D\n", engine="device")
     assert first == fresh
     logs = sorted(os.listdir(rdir))
     assert logs, "no shard logs written"
@@ -49,11 +49,11 @@ def test_resume_produces_identical_vcf(corpus, tmp_path):
     kept = lines[: max(1, len(lines) // 2)]
     with open(p, "w") as f:
         f.writelines(kept)
-    resumed = run(cfg, date="D\n", engine="tpu")
+    resumed = run(cfg, date="D\n", engine="device")
     assert resumed == fresh
 
     # a second resume over a complete log skips all windows, same VCF
-    again = run(cfg, date="D\n", engine="tpu")
+    again = run(cfg, date="D\n", engine="device")
     assert again == fresh
 
 
@@ -123,12 +123,12 @@ def test_died_worker_windows_reenqueued(tmp_path, monkeypatch):
                  region=region, num_threads=2)
     # force the process-pool path (the native shard runner is in-process
     # threaded C++ — no workers to die there)
-    monkeypatch.setenv("LANCET_TPU_NO_SHARDRUN", "1")
-    v_ok = run(cfg, command_line="x", date="D\n", engine="tpu",
+    monkeypatch.setenv("LANCET_NO_SHARDRUN", "1")
+    v_ok = run(cfg, command_line="x", date="D\n", engine="device",
                processes=True)
-    monkeypatch.setenv("LANCET_TPU_TEST_KILL_SHARD", "1")
+    monkeypatch.setenv("LANCET_TEST_KILL_SHARD", "1")
     stats = {}
-    v_dead = run(cfg, command_line="x", date="D\n", engine="tpu",
+    v_dead = run(cfg, command_line="x", date="D\n", engine="device",
                  processes=True, stats=stats)
     # a killed worker can break the whole pool (BrokenProcessPool makes
     # every pending future raise), so under load BOTH shards may count

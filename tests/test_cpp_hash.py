@@ -3,7 +3,7 @@ tools/; these check internal consistency)."""
 
 import random
 
-from lancet_tpu.cpp_hash import CppUnorderedMap, hash_bytes
+from lancet_jax.cpp_hash import CppUnorderedMap, hash_bytes
 
 
 def test_hash_bytes_known_values():

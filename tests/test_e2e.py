@@ -2,8 +2,8 @@
 
 import pytest
 
-from lancet_tpu.config import Config
-from lancet_tpu.runner import run
+from lancet_jax.config import Config
+from lancet_jax.runner import run
 from tests.helpers import make_reference, tiled_reads, write_pair
 
 

@@ -1,9 +1,9 @@
 import math
 import random
 
-from lancet_tpu.engine.align import (GAP_EXTEND, GAP_OPEN, MATCH, MISMATCH,
+from lancet_jax.engine.align import (GAP_EXTEND, GAP_OPEN, MATCH, MISMATCH,
                                      global_align_aff)
-from lancet_tpu.engine.fet import fet_phred, kt_fisher_exact
+from lancet_jax.engine.fet import fet_phred, kt_fisher_exact
 
 
 def brute_two_tail(n11, n12, n21, n22):

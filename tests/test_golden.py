@@ -2,7 +2,7 @@
 binary is absent; see .claude/skills/verify/SKILL.md to build it).
 
 Coverage: every scenario family in goldengen.ALL_SCENARIOS (+ linked-read
-mode) across 3 seeds, a subset re-run on the fast (tpu) engine, and a
+mode) across 3 seeds, a subset re-run on the fast (device) engine, and a
 50-event randomized fuzz chromosome (mixed events, quality/clip/MAPQ
 noise) compared in a single run.
 """
@@ -34,15 +34,15 @@ def test_golden_record_equal(name, seed):
 @pytest.mark.parametrize("name", ["somatic_del", "paired_overlap",
                                   "adjacent_complex", "random_storm"])
 def test_golden_record_equal_fast_engine(name):
-    good, msg = compare_one(name, 0, BIN, engine="tpu")
+    good, msg = compare_one(name, 0, BIN, engine="device")
     assert good, msg
 
 
 def test_golden_fuzz_battery():
     """50 randomized event windows on one chromosome, record-equal in a
     single run (ref: thread-pool merge semantics, Lancet.cc:938-959)."""
-    from lancet_tpu.config import Config
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.runner import run
     from tests.helpers import write_pair
 
     refseq, tumor, normal, region = fuzz_corpus(7, n_events=50)

@@ -3,9 +3,9 @@ config dump, kmer recovery."""
 
 import os
 
-from lancet_tpu.cli import build_parser, config_from_args
-from lancet_tpu.config import Config
-from lancet_tpu.runner import run
+from lancet_jax.cli import build_parser, config_from_args
+from lancet_jax.config import Config
+from lancet_jax.runner import run
 from tests.goldengen import scenario
 from tests.helpers import write_pair
 
@@ -35,8 +35,8 @@ def test_process_pool_matches_serial(tmp_path):
     cfg, region = _setup(tmp_path, "two_snvs", 1)
     import dataclasses
     cfg4 = dataclasses.replace(cfg, num_threads=4)
-    v_serial = run(cfg, command_line="x", date="D\n", engine="tpu")
-    v_pool = run(cfg4, command_line="x", date="D\n", engine="tpu",
+    v_serial = run(cfg, command_line="x", date="D\n", engine="device")
+    v_pool = run(cfg4, command_line="x", date="D\n", engine="device",
                  processes=True)
     # num_threads alters shard assignment only; records must agree
     recs = lambda v: [l for l in v.splitlines() if not l.startswith("#")]
@@ -67,11 +67,11 @@ def test_kmer_recovery_runs(tmp_path):
 def test_print_pairs_export(tmp_path):
     """print_pairs (ref: Graph.cc:1963-2022): neighboring-contig pairs +
     isolated contigs as FASTA, with the reference's pair de-dup rule."""
-    from lancet_tpu.engine import dot as dot_mod
-    from lancet_tpu.engine.graph import Graph
-    from lancet_tpu.engine.micro import Microassembler
-    from lancet_tpu.io import open_bam, open_fasta
-    from lancet_tpu.windows import generate_windows
+    from lancet_jax.engine import dot as dot_mod
+    from lancet_jax.engine.graph import Graph
+    from lancet_jax.engine.micro import Microassembler
+    from lancet_jax.io import open_bam, open_fasta
+    from lancet_jax.windows import generate_windows
 
     cfg, region = _setup(tmp_path, "somatic_del", 0)
     captured = []

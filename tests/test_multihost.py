@@ -1,5 +1,5 @@
 """Multi-host fan-out: 2 jax.distributed processes over window shards
-produce a VCF byte-identical to the single-process run (the TPU-native
+produce a VCF byte-identical to the single-process run (the device-native
 replacement for the reference's qsub cluster fan-out + merge,
 README.md:70-88)."""
 
@@ -16,14 +16,14 @@ os.environ.pop("XLA_FLAGS", None)  # 1 local CPU device per process
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from lancet_tpu.config import Config
-from lancet_tpu.parallel.multihost import init_distributed, run_multihost
+from lancet_jax.config import Config
+from lancet_jax.parallel.multihost import init_distributed, run_multihost
 
 pid = int(sys.argv[1]); nproc = int(sys.argv[2]); port = sys.argv[3]
 init_distributed("127.0.0.1:" + port, nproc, pid)
 cfg = Config(tumor_bam={tumor!r}, normal_bam={normal!r},
              ref_fasta={ref!r}, region={region!r}, num_threads=3)
-vcf = run_multihost(cfg, command_line="mh", date="D\n", engine="tpu")
+vcf = run_multihost(cfg, command_line="mh", date="D\n", engine="device")
 if pid == 0:
     open({out!r}, "w").write(vcf)
 """
@@ -32,8 +32,8 @@ if pid == 0:
 def test_two_process_vcf_matches_single(tmp_path):
     from test_shardrun import _mixed_corpus
 
-    from lancet_tpu.config import Config
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.runner import run
 
     chrom_len = _mixed_corpus(tmp_path, seed=31, chrom_len=9000)
     region = f"chr1:300-{chrom_len - 300}"
@@ -41,7 +41,7 @@ def test_two_process_vcf_matches_single(tmp_path):
                  normal_bam=f"{tmp_path}/normal.bam",
                  ref_fasta=f"{tmp_path}/ref.fa", region=region,
                  num_threads=3)
-    want = run(cfg, command_line="mh", date="D\n", engine="tpu")
+    want = run(cfg, command_line="mh", date="D\n", engine="device")
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -52,7 +52,7 @@ def test_two_process_vcf_matches_single(tmp_path):
                             region=region, out=out)
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
-    env.pop("LANCET_TPU_DEVGRAPH", None)
+    env.pop("LANCET_DEVGRAPH", None)
     procs = [subprocess.Popen([sys.executable, "-c", script, str(i), "2",
                                port], env=env, cwd=REPO)
              for i in range(2)]
@@ -69,22 +69,22 @@ def test_shard_filter_collect_partition(tmp_path):
     on, without spawning processes)."""
     from test_shardrun import _mixed_corpus
 
-    from lancet_tpu.config import Config
-    from lancet_tpu.engine.vardb import VariantDB
-    from lancet_tpu.runner import LANCET_VERSION, run
-    from lancet_tpu.io import open_bam
+    from lancet_jax.config import Config
+    from lancet_jax.engine.vardb import VariantDB
+    from lancet_jax.runner import LANCET_VERSION, run
+    from lancet_jax.io import open_bam
 
     chrom_len = _mixed_corpus(tmp_path, seed=33, chrom_len=9000)
     cfg = Config(tumor_bam=f"{tmp_path}/tumor.bam",
                  normal_bam=f"{tmp_path}/normal.bam",
                  ref_fasta=f"{tmp_path}/ref.fa",
                  region=f"chr1:300-{chrom_len - 300}", num_threads=3)
-    want = run(cfg, command_line="mh", date="D\n", engine="tpu")
+    want = run(cfg, command_line="mh", date="D\n", engine="device")
 
     parts = []
     for p in range(2):
         collect = {}
-        run(cfg, command_line="mh", date="D\n", engine="tpu",
+        run(cfg, command_line="mh", date="D\n", engine="device",
             shard_filter=lambda si, p=p: si % 2 == p, collect=collect)
         parts.extend(collect["shard_dbs"])
     merged = VariantDB(cfg.lr_mode)
@@ -102,20 +102,20 @@ def test_shard_filter_collect_partition(tmp_path):
 _WORKER_DEVGRAPH = r"""
 import os, sys
 os.environ.pop("XLA_FLAGS", None)  # 1 local CPU device per process
-os.environ["LANCET_TPU_DEVGRAPH"] = "1"
+os.environ["LANCET_DEVGRAPH"] = "1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from lancet_tpu.config import Config
-from lancet_tpu.parallel.mesh import make_local_mesh
-from lancet_tpu.parallel.multihost import init_distributed, run_multihost
+from lancet_jax.config import Config
+from lancet_jax.parallel.mesh import make_local_mesh
+from lancet_jax.parallel.multihost import init_distributed, run_multihost
 
 pid = int(sys.argv[1]); nproc = int(sys.argv[2]); port = sys.argv[3]
 init_distributed("127.0.0.1:" + port, nproc, pid)
 stats = {{}}
 cfg = Config(tumor_bam={tumor!r}, normal_bam={normal!r},
              ref_fasta={ref!r}, region={region!r}, num_threads=3)
-vcf = run_multihost(cfg, command_line="mh", date="D\n", engine="tpu",
+vcf = run_multihost(cfg, command_line="mh", date="D\n", engine="device",
                     mesh=make_local_mesh(), stats=stats)
 assert stats.get("n_dev_windows", 0) > 0, "device graph engine idle"
 if pid == 0:
@@ -124,7 +124,7 @@ if pid == 0:
 
 
 def test_two_process_devgraph_matches_single(tmp_path):
-    """Multi-host x device-graph composition (the TPU-pod story): 2
+    """Multi-host x device-graph composition (the multi-host story): 2
     jax.distributed processes, each running the DEVICE graph engine over
     a per-process local mesh on its window shards, must produce a VCF
     byte-identical to the single-process native run (ref thread/process
@@ -133,8 +133,8 @@ def test_two_process_devgraph_matches_single(tmp_path):
 
     from test_shardrun import _mixed_corpus
 
-    from lancet_tpu.config import Config
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.runner import run
 
     chrom_len = _mixed_corpus(tmp_path, seed=37, chrom_len=9000)
     region = f"chr1:300-{chrom_len - 300}"
@@ -142,7 +142,7 @@ def test_two_process_devgraph_matches_single(tmp_path):
                  normal_bam=f"{tmp_path}/normal.bam",
                  ref_fasta=f"{tmp_path}/ref.fa", region=region,
                  num_threads=3)
-    want = run(cfg, command_line="mh", date="D\n", engine="tpu")
+    want = run(cfg, command_line="mh", date="D\n", engine="device")
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -14,7 +14,7 @@ import sys
 import pytest
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
-SRC = os.path.join(REPO, "lancet_tpu", "native", "lancet_native.cc")
+SRC = os.path.join(REPO, "lancet_jax", "native", "lancet_native.cc")
 
 
 def _libasan() -> str | None:
@@ -40,7 +40,7 @@ def test_native_under_asan_ubsan(tmp_path):
     env = dict(os.environ)
     env.update({
         "LD_PRELOAD": libasan,
-        "LANCET_TPU_NATIVE_SO": so,
+        "LANCET_NATIVE_SO": so,
         # Python's allocator is not leak-clean; we're after memory errors
         "ASAN_OPTIONS": "detect_leaks=0:abort_on_error=1",
         "UBSAN_OPTIONS": "halt_on_error=1:print_stacktrace=1",

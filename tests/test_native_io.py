@@ -7,10 +7,10 @@ import random
 import pytest
 
 from helpers import make_reference, make_read, tiled_reads, write_pair
-from lancet_tpu.io.bam import BamReader
-from lancet_tpu.io.fasta import FastaFile
+from lancet_jax.io.bam import BamReader
+from lancet_jax.io.fasta import FastaFile
 
-native = pytest.importorskip("lancet_tpu.native")
+native = pytest.importorskip("lancet_jax.native")
 
 try:
     native.load_library()
@@ -92,17 +92,17 @@ def test_native_end_to_end_vcf(corpus):
     """runner.run with native readers == with Python readers."""
     import os
 
-    from lancet_tpu.config import Config
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.runner import run
 
     d, _ = corpus
     cfg = Config(tumor_bam=f"{d}/tumor.bam", normal_bam=f"{d}/normal.bam",
                  ref_fasta=f"{d}/ref.fa", region="chr9:2400-2600")
     v_native = run(cfg, date="D\n")
-    os.environ["LANCET_TPU_NO_NATIVE"] = "1"
+    os.environ["LANCET_NO_NATIVE"] = "1"
     try:
         v_py = run(cfg, date="D\n")
     finally:
-        del os.environ["LANCET_TPU_NO_NATIVE"]
+        del os.environ["LANCET_NO_NATIVE"]
     assert v_native == v_py
     assert "2501" in v_native  # the somatic SNV at 0-based 2500

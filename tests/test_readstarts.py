@@ -4,9 +4,9 @@ on the active oracle path per component; here we also assert it never
 fires (bad == 0) and actually inspects records (all > 0) on real windows.
 """
 
-from lancet_tpu.config import Config
-from lancet_tpu.engine.graph import Graph
-from lancet_tpu.runner import run
+from lancet_jax.config import Config
+from lancet_jax.engine.graph import Graph
+from lancet_jax.runner import run
 from tests.goldengen import scenario
 from tests.helpers import write_pair
 

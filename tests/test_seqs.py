@@ -1,6 +1,6 @@
 import random
 
-from lancet_tpu.engine import seqs
+from lancet_jax.engine import seqs
 
 
 def brute_is_almost_repeat(s, k, mx):

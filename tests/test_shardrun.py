@@ -14,8 +14,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from helpers import make_reference, write_pair  # noqa: E402
 from goldengen import hap_reads  # noqa: E402
 
-from lancet_tpu.config import Config  # noqa: E402
-from lancet_tpu.runner import run  # noqa: E402
+from lancet_jax.config import Config  # noqa: E402
+from lancet_jax.runner import run  # noqa: E402
 
 
 def _mixed_corpus(tmp_path, seed=5, chrom_len=12000, spacing=1500):
@@ -48,30 +48,30 @@ def _run(tmp_path, region, engine, native, threads=3):
                  normal_bam=f"{tmp_path}/normal.bam",
                  ref_fasta=f"{tmp_path}/ref.fa", region=region,
                  num_threads=threads)
-    old = os.environ.pop("LANCET_TPU_NO_SHARDRUN", None)
+    old = os.environ.pop("LANCET_NO_SHARDRUN", None)
     if not native:
-        os.environ["LANCET_TPU_NO_SHARDRUN"] = "1"
+        os.environ["LANCET_NO_SHARDRUN"] = "1"
     err = io.StringIO()
     stderr, sys.stderr = sys.stderr, err
     try:
         vcf = run(cfg, command_line="t", date="D\n", engine=engine)
     finally:
         sys.stderr = stderr
-        os.environ.pop("LANCET_TPU_NO_SHARDRUN", None)
+        os.environ.pop("LANCET_NO_SHARDRUN", None)
         if old is not None:
-            os.environ["LANCET_TPU_NO_SHARDRUN"] = old
+            os.environ["LANCET_NO_SHARDRUN"] = old
     return vcf, err.getvalue()
 
 
 @pytest.mark.parametrize("threads", [1, 3])
 def test_shardrun_matches_oracle(tmp_path, threads):
-    from lancet_tpu.engine import shardrun
+    from lancet_jax.engine import shardrun
 
     if not shardrun.available():
         pytest.skip("native toolchain unavailable")
     chrom_len = _mixed_corpus(tmp_path)
     region = f"chr1:300-{chrom_len - 300}"
-    vcf_n, err_n = _run(tmp_path, region, "tpu", native=True,
+    vcf_n, err_n = _run(tmp_path, region, "device", native=True,
                         threads=threads)
     vcf_o, err_o = _run(tmp_path, region, "oracle", native=False,
                         threads=threads)
@@ -79,32 +79,32 @@ def test_shardrun_matches_oracle(tmp_path, threads):
     assert err_n == err_o  # summary counters byte-equal
 
 
-def test_shardrun_matches_python_tpu_engine(tmp_path):
-    from lancet_tpu.engine import shardrun
+def test_shardrun_matches_python_device_engine(tmp_path):
+    from lancet_jax.engine import shardrun
 
     if not shardrun.available():
         pytest.skip("native toolchain unavailable")
     chrom_len = _mixed_corpus(tmp_path, seed=9, chrom_len=9000)
     region = f"chr1:300-{chrom_len - 300}"
-    vcf_n, err_n = _run(tmp_path, region, "tpu", native=True)
-    vcf_p, err_p = _run(tmp_path, region, "tpu", native=False)
+    vcf_n, err_n = _run(tmp_path, region, "device", native=True)
+    vcf_p, err_p = _run(tmp_path, region, "device", native=False)
     assert vcf_n == vcf_p
     assert err_n == err_p
 
 
 def test_shardrun_device_gates_equal(tmp_path):
-    """Device repeat gates (LANCET_TPU_GATES=1) and native lazy scans gate
+    """Device repeat gates (LANCET_GATES=1) and native lazy scans gate
     identically."""
-    from lancet_tpu.engine import shardrun
+    from lancet_jax.engine import shardrun
 
     if not shardrun.available():
         pytest.skip("native toolchain unavailable")
     chrom_len = _mixed_corpus(tmp_path, seed=13, chrom_len=8000)
     region = f"chr1:300-{chrom_len - 300}"
-    vcf_scan, _ = _run(tmp_path, region, "tpu", native=True)
-    os.environ["LANCET_TPU_GATES"] = "1"
+    vcf_scan, _ = _run(tmp_path, region, "device", native=True)
+    os.environ["LANCET_GATES"] = "1"
     try:
-        vcf_dev, _ = _run(tmp_path, region, "tpu", native=True)
+        vcf_dev, _ = _run(tmp_path, region, "device", native=True)
     finally:
-        del os.environ["LANCET_TPU_GATES"]
+        del os.environ["LANCET_GATES"]
     assert vcf_scan == vcf_dev

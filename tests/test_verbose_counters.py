@@ -51,8 +51,8 @@ def test_verbose_counter_lines_match(name, tmp_path):
         [sys.executable, "-c",
          "import sys; sys.path.insert(0, sys.argv[4])\n"
          "import jax; jax.config.update('jax_platforms', 'cpu')\n"
-         "from lancet_tpu.config import Config\n"
-         "from lancet_tpu.runner import run\n"
+         "from lancet_jax.config import Config\n"
+         "from lancet_jax.runner import run\n"
          "run(Config(tumor_bam=sys.argv[1], normal_bam=sys.argv[2],"
          " ref_fasta=sys.argv[3], region=sys.argv[5], verbose=True))",
          t_path, n_path, ref_path,

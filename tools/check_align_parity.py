@@ -23,7 +23,7 @@ import subprocess
 import sys
 
 sys.path.insert(0, ".")
-from lancet_tpu.engine.align import global_align_aff  # noqa: E402
+from lancet_jax.engine.align import global_align_aff  # noqa: E402
 
 
 def main():

@@ -23,9 +23,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
 def main() -> int:
     import bench
-    from lancet_tpu.config import Config
-    from lancet_tpu.engine import devicepipe
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.engine import devicepipe
+    from lancet_jax.runner import run
 
     bench.build_corpus()
     region = sys.argv[1] if len(sys.argv) > 1 else "chr1:300-30000"
@@ -46,16 +46,16 @@ def main() -> int:
                     max_indel, max_mismatch, mesh)
 
     devicepipe._assemble = spy
-    os.environ["LANCET_TPU_DEVGRAPH"] = "1"
+    os.environ["LANCET_DEVGRAPH"] = "1"
     try:
         with contextlib.redirect_stderr(io.StringIO()):
-            run(cfg, command_line="prof", date="D\n", engine="tpu")
+            run(cfg, command_line="prof", date="D\n", engine="device")
     finally:
         devicepipe._assemble = orig
 
     import jax
 
-    from lancet_tpu.tpu import pipeline
+    from lancet_jax.device import pipeline
 
     CM = devicepipe._CMAX
     for (K, N, E), (b, ranks, raw, cfg_s, dfs_limit, max_indel,

@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
 def main() -> int:
     import bench
-    from lancet_tpu.config import Config
-    from lancet_tpu.runner import run
+    from lancet_jax.config import Config
+    from lancet_jax.runner import run
 
     bench.build_corpus()
     region = sys.argv[1] if len(sys.argv) > 1 else "chr1:300-12000"
@@ -26,13 +26,13 @@ def main() -> int:
                  normal_bam=os.path.join(bench.CORPUS_DIR, "normal.bam"),
                  ref_fasta=os.path.join(bench.CORPUS_DIR, "ref.fa"),
                  region=region, num_threads=8)
-    os.environ["LANCET_TPU_DEVGRAPH"] = "1"
-    os.environ["LANCET_TPU_PROGRESS"] = "1"
+    os.environ["LANCET_DEVGRAPH"] = "1"
+    os.environ["LANCET_PROGRESS"] = "1"
     passes = 2 if "--warm" in sys.argv else 1
     for p in range(passes):
         stats: dict = {}
         t0 = time.time()
-        run(cfg, command_line="p", date="D\n", engine="tpu", stats=stats)
+        run(cfg, command_line="p", date="D\n", engine="device", stats=stats)
         dt = time.time() - t0
         print(f"pass {p}: {nwin} windows in {dt:.2f}s = {nwin/dt:.1f} wps",
               flush=True)
